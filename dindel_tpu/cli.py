@@ -120,13 +120,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", default="streaming",
                     choices=["streaming", "batched"],
                     help="indels engine: 'batched' pipelines many windows "
-                         "per device dispatch (TPU production path); "
+                         "per device dispatch (the production path); "
                          "'streaming' is the per-window reference path")
     ap.add_argument("--batchWindows", type=int, default=128,
                     help="windows staged per flush (batched engine)")
     ap.add_argument("--maxPairsPerSlab", type=int, default=24576,
                     help="max (hap,read) pairs per device slab "
-                         "(bounds backpointer HBM; batched engine)")
+                         "(bounds backpointer device memory; batched "
+                         "engine)")
     ap.add_argument("--stageProcs", type=int, default=0,
                     help="N staging processes feeding this process's "
                          "device via the intra-host device server "
@@ -135,16 +136,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "shard unit)")
     ap.add_argument("--mesh", default=None, metavar="DPxRP",
                     help="shard the batched engine's device slabs over a "
-                         "dp x rp jax.sharding.Mesh, e.g. --mesh 4x2 "
-                         "(TPU-native scale-out; requires dp*rp local "
-                         "devices)")
+                         "dp x rp jax.sharding.Mesh, e.g. --mesh 4x1 "
+                         "(requires dp*rp local devices)")
     ap.add_argument("--inferenceMethod", default="empirical",
                     help="inference method (only 'empirical' does anything, "
                          "as in the reference, DInDel.cpp:1365)")
     ap.add_argument("--hmmBackend", default="jax",
-                    choices=["jax", "pallas", "oracle"],
+                    choices=["jax", "fused", "oracle"],
                     help="pair-HMM backend: jax (batched XLA kernel), "
-                         "pallas (fused TPU kernel), oracle (float64 NumPy)")
+                         "fused (one-launch DP kernel, float32; CUDA on "
+                         "GPUs), oracle (float64 NumPy)")
     # pipeline subcommand options
     ap.add_argument("--inputVarFile")
     ap.add_argument("--windowFilePrefix")
@@ -227,6 +228,56 @@ def params_from_args(args) -> Parameters:
     return p
 
 
+def run_indels(args) -> dict:
+    """--analysis indels; returns the engine's RunStats summary."""
+    from . import compile_cache
+    compile_cache.enable()
+    params = params_from_args(args)
+    bam_paths = ([args.bamFile] if args.bamFile
+                 else [l.split()[0] for l in open(args.bamFiles)])
+    libraries = LibraryCollection()
+    if args.libFile:
+        params.map_unmapped_reads = True
+        libraries.add_from_file(args.libFile)
+    # The batched engine pipelines host packing/decoding with device
+    # slabs (the production path); the streaming engine is the
+    # per-window reference path (and the --faster sparse-HMM path).
+    use_batched = args.engine == "batched" and params.slower
+    dp_impl = "fused" if args.hmmBackend == "fused" else "xla"
+    if use_batched and args.stageProcs > 0:
+        import numpy as np
+        from .parallel.hostshard import run_hostshard
+        win_files = args.varFile.split(",")
+        out_glf = params.file_name + ".glf.txt"
+        run_hostshard(
+            bam_paths, args.ref, params, win_files, out_glf,
+            n_procs=args.stageProcs,
+            engine_kw=dict(batch_windows=args.batchWindows,
+                           max_pairs_per_slab=args.maxPairsPerSlab,
+                           dp_impl=dp_impl, dtype=np.float32),
+            lib_file=args.libFile)
+        return {}
+    if use_batched:
+        import numpy as np
+        from .engine.batched import BatchedWindowEngine
+        mesh = None
+        if args.mesh:
+            n_dp, n_rp = (int(t) for t in args.mesh.lower().split("x"))
+            mesh = (n_dp, n_rp)
+        eng = BatchedWindowEngine(
+            bam_paths, args.ref, params, libraries,
+            batch_windows=args.batchWindows,
+            max_pairs_per_slab=args.maxPairsPerSlab,
+            dp_impl=dp_impl, dtype=np.float32, mesh=mesh)
+    else:
+        from .engine.window import WindowEngine
+        eng = WindowEngine(bam_paths, args.ref, params, libraries,
+                           hmm_backend=args.hmmBackend)
+    eng.detect_indels(args.varFile)
+    eng.close()
+    return eng.stats.summary()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     analysis = args.analysis
@@ -244,51 +295,7 @@ def main(argv=None) -> int:
         return 0
 
     if analysis == "indels":
-        params = params_from_args(args)
-        bam_paths = ([args.bamFile] if args.bamFile
-                     else [l.split()[0] for l in open(args.bamFiles)])
-        libraries = LibraryCollection()
-        if args.libFile:
-            params.map_unmapped_reads = True
-            libraries.add_from_file(args.libFile)
-        # The batched engine pipelines host packing/decoding with device
-        # slabs (the TPU production path); the streaming engine is the
-        # per-window reference path (and the --faster sparse-HMM path).
-        use_batched = args.engine == "batched" and params.slower
-        if use_batched and args.stageProcs > 0:
-            import numpy as np
-            from .parallel.hostshard import run_hostshard
-            win_files = args.varFile.split(",")
-            out_glf = params.file_name + ".glf.txt"
-            run_hostshard(
-                bam_paths, args.ref, params, win_files, out_glf,
-                n_procs=args.stageProcs,
-                engine_kw=dict(batch_windows=args.batchWindows,
-                               max_pairs_per_slab=args.maxPairsPerSlab,
-                               dp_impl=("pallas" if args.hmmBackend == "pallas"
-                                        else "xla"),
-                               dtype=np.float32),
-                lib_file=args.libFile)
-            return 0
-        if use_batched:
-            import numpy as np
-            from .engine.batched import BatchedWindowEngine
-            dp_impl = "pallas" if args.hmmBackend == "pallas" else "xla"
-            mesh = None
-            if args.mesh:
-                n_dp, n_rp = (int(t) for t in args.mesh.lower().split("x"))
-                mesh = (n_dp, n_rp)
-            eng = BatchedWindowEngine(
-                bam_paths, args.ref, params, libraries,
-                batch_windows=args.batchWindows,
-                max_pairs_per_slab=args.maxPairsPerSlab,
-                dp_impl=dp_impl, dtype=np.float32, mesh=mesh)
-        else:
-            from .engine.window import WindowEngine
-            eng = WindowEngine(bam_paths, args.ref, params, libraries,
-                               hmm_backend=args.hmmBackend)
-        eng.detect_indels(args.varFile)
-        eng.close()
+        run_indels(args)
         return 0
 
     if analysis == "realignCandidates":

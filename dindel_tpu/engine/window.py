@@ -130,12 +130,12 @@ class WindowEngine:
         self.stats = RunStats()
         self.hmm_backend = hmm_backend
         self._batch_hmm = None
-        if hmm_backend in ("jax", "pallas"):
+        if hmm_backend in ("jax", "fused"):
             import numpy as _np
             from ..hmm.batch import BatchedPairHMM
-            if hmm_backend == "pallas":
+            if hmm_backend == "fused":
                 self._batch_hmm = BatchedPairHMM(
-                    params.obs_params, dtype=_np.float32, dp_impl="pallas")
+                    params.obs_params, dtype=_np.float32, dp_impl="fused")
             else:
                 self._batch_hmm = BatchedPairHMM(params.obs_params)
 

@@ -23,8 +23,8 @@ Reference quirks preserved deliberately (load-bearing for output parity):
   - no positive-log-likelihood or NaN guards in the driver loop
     (contrast computeLikelihoods, DInDel.cpp:1722-1735).
 
-This path exists for behavioral completeness; the dense batched TPU
-kernel (hmm/batch.py) outperforms it on TPU, so ``--faster`` trades
+This path exists for behavioral completeness; the dense batched device
+kernels (hmm/batch.py) outperform it, so ``--faster`` trades
 fidelity-to-reference for nothing except matching reference outputs.
 """
 

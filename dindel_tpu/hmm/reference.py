@@ -1,7 +1,7 @@
 """Float64 NumPy oracle of the production pair-HMM (max-product with
 homopolymer-aware indel-error transitions).
 
-This is the numerical contract for the batched JAX/Pallas kernels: an exact
+This is the numerical contract for the batched device kernels: an exact
 behavioral port of ObservationModelFBMaxErr (ObservationModelFB.cpp:867-1829)
 including the EPS tie-breaking of updateMax (:877-888), the bMid anchoring
 (:35-102, :268-305), emission quirks (insertion states emit 'match',

@@ -238,7 +238,7 @@ def _window_call(W, NH, S, NR, ll, index_map, nr_w, pair_pr):
     diploid_glf); masked reads add +0.0 which is exact.
 
     index_map (W, NH, NR) int32 maps each padded slot to its flat pair
-    index (0 for pad slots — a GATHER, because TPU scatters serialize);
+    index (0 for pad slots — a gather: the map is built on host);
     garbage from pad slots is masked by nr_w here and by pair validity
     on host."""
     dt = pair_pr.dtype
@@ -278,7 +278,8 @@ def host_window_folds(ll2d: np.ndarray, ctab: dict):
     contract (test_callers_ref / golden fixtures) is anchored on the
     numpy/libm side, so whenever x64 is enabled (every parity and CPU
     configuration) the engine uses these host folds; the device fold
-    runs in f32 on TPU production where no byte contract applies.
+    runs in f32 on the device in production, where no byte contract
+    applies.
     tests/test_device_call.py::test_window_call_matches_host_folds pins
     the two to ~1e-9."""
     h1v, h2v = ctab["h1v"], ctab["h2v"]

@@ -191,7 +191,7 @@ def estimate_hap_freqs_bayes_em(
 
     em_results: optional device-EM output (infer/device_em) — a list of
     (loglik, pi) per active set in th order; when given, the host EM
-    while-loop is skipped (f32 TPU production path; the host loop stays
+    while-loop is skipped (f32 device production path; the host loop stays
     the byte-parity anchor)."""
     import numpy as np
     from .arrays import LiksArrays, add_logs_arr, seq_sum

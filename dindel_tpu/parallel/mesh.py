@@ -2,18 +2,19 @@
 tensor-parallel ('rp') over a jax.sharding.Mesh.
 
 The reference scales by running one process per window file with zero
-communication (makeWindows.py:46-54); the TPU-native design shards a
-*batch of windows* over the mesh instead:
+communication (makeWindows.py:46-54); this design shards a *batch of
+windows* over a device mesh instead:
 
 - 'dp' axis: independent realignment windows (the natural data axis);
 - 'rp' axis: the reads of each window are sharded across chips; per-pair
   log-likelihoods are computed locally and the diploid genotype
   log-likelihood matrix G[h1,h2] = sum_r log(.5 e^{ll[h1,r]}+.5 e^{ll[h2,r]})
   is completed with a psum over 'rp' (the tensor-parallel analogue for
-  this workload; collectives ride ICI).
+  this workload).
 
 The same step function drives dryrun_multichip (virtual CPU devices) and
-real pod-slice runs."""
+multi-GPU runs.  Every device reaches every other at the same rate, so
+make_mesh is a flat device list with no topology."""
 
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def make_mesh(n_dp: int, n_rp: int, devices=None) -> Mesh:
 def _window_step_local(H_pad, L_pad, numT, nh, dp_impl, args):
     """Per-shard computation: batched HMM over the local (window, hap,
     read-shard) pairs + partial genotype matrix, completed by psum.
-    dp_impl selects the production DP kernel (Pallas on TPU)."""
+    dp_impl selects the DP implementation ("xla" or "fused")."""
     (hap_len, read_len, b_mid, read_codes, hap_codes, eq, uq,
      lpe, lpn, lpeV, lpnV, prior_rmq, prior_hmq, obs_mid, read_mask,
      scalars) = args
@@ -67,7 +68,7 @@ def _window_step_local(H_pad, L_pad, numT, nh, dp_impl, args):
         amid, bmid_, btf, btb = dp(H_pad, L_pad, numT, hl, rl, bm, rc,
                                    hc, e, u, le, ln, leV, lnV, sc)
         out = _finish(H_pad, L_pad, bm, amid, bmid_, om, prr, prh, btf, btb,
-                      bt_codes=(dp_impl == "pallas"), numT=numT, hap_len=hl)
+                      bt_codes=(dp_impl == "fused"), numT=numT, hap_len=hl)
         return out[0]  # ll, (B,) = (nh * nr_loc,)
 
     ll = jax.vmap(one_window)(
@@ -225,24 +226,11 @@ def dryrun_multichip(n_devices: int) -> None:
     assert G.shape == (W, nh, nh)
     assert bool(jnp.isfinite(G).all())
 
-    # 3. the SHIPPED kernel configuration under the mesh: pallas
-    #    (interpret mode off-TPU) + fast ties + f32, sharded vs single
-    #    device — the exact multi-chip production path
-    #    (--hmmBackend pallas --mesh)
-    import dindel_tpu.hmm.pallas_kernel as pallas_kernel
-    on_tpu = jax.devices()[0].platform == "tpu"
-    old = pallas_kernel.FORCE_INTERPRET
-    pallas_kernel.FORCE_INTERPRET = not on_tpu
-    try:
-        pksp = [pack_pairs_compact(haps, reads, hs, params, np.float32,
-                                   H_pad=126, L_pad=128)
-                for haps, reads, hs in windows]
-        mergedp = pad_compact(merge_compact(pksp))
-        refp = [np.asarray(o) for o in run_packed_compact(mergedp, "pallas")]
-        gotp = [np.asarray(o)
-                for o in run_packed_compact_sharded(mergedp, "pallas", mesh)]
-        for a, b in zip(refp, gotp):
-            assert a.shape == b.shape and (a == b).all(), \
-                "sharded pallas slab step diverged from single-device"
-    finally:
-        pallas_kernel.FORCE_INTERPRET = old
+    # 3. the fused DP kernel under the mesh (--hmmBackend fused --mesh):
+    #    f32, argmax finish, sharded vs single device.  The kernel's
+    #    platform build runs: CUDA on GPUs, the host build on CPU.
+    got = [np.asarray(o)
+           for o in run_packed_compact_sharded(merged, "fused", mesh)]
+    for a, b in zip(run_packed_compact(merged, "fused"), got):
+        assert a.shape == b.shape and (np.asarray(a) == b).all(), \
+            "sharded fused slab step diverged from single-device"

@@ -8,7 +8,9 @@ automates the same model:
 - single host: a process pool over window files, each worker running the
   (batched) window engine; per-shard GLF outputs are merged in window
   order, preserving the reference's restartability property (a shard is
-  the checkpoint granularity — rerun a file, rerun its windows);
+  the checkpoint granularity — rerun a file, rerun its windows).  On a
+  GPU host each worker is pinned to a card of its own (a JAX process
+  reserves most of a card's memory, so two cannot share one);
 - multi host: call run_shards with this host's slice of the window files
   (e.g. files[host_id::num_hosts] under jax.distributed); every host
   writes its own GLF shards and host 0 merges, exactly like the
@@ -18,6 +20,7 @@ automates the same model:
 from __future__ import annotations
 
 import os
+import subprocess
 from multiprocessing import get_context
 from typing import List, Optional
 
@@ -29,8 +32,10 @@ def _run_one(args):
     (window_file, bam_paths, fasta_path, params, lib_file, backend,
      out_prefix) = args
     # imports inside the worker keep fork-safety with jax
+    from .. import compile_cache
     from ..engine.batched import BatchedWindowEngine
     import numpy as np
+    compile_cache.enable()
     libraries = LibraryCollection()
     if lib_file:
         # NB: obs_params.map_unmapped_reads (the insert-size positional
@@ -39,8 +44,10 @@ def _run_one(args):
         params.map_unmapped_reads = True
         libraries.add_from_file(lib_file)
     params.file_name = out_prefix
-    dp_impl = "pallas" if backend == "pallas" else "xla"
-    dtype = np.float32 if backend == "pallas" else np.float64
+    import jax
+    dp_impl = "fused" if backend == "fused" else "xla"
+    dtype = (np.float64 if dp_impl == "xla" and jax.config.jax_enable_x64
+             else np.float32)
     eng = BatchedWindowEngine([*bam_paths], fasta_path, params, libraries,
                               dp_impl=dp_impl, dtype=dtype)
     glf_path = out_prefix + ".glf.txt"
@@ -50,11 +57,38 @@ def _run_one(args):
     return glf_path, stats
 
 
+def visible_cards() -> int:
+    """Number of NVIDIA GPUs on this host (0 where there is none), read
+    without starting JAX: the parent of a worker pool must stay off the
+    cards."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=index",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+    except (FileNotFoundError, subprocess.TimeoutExpired):
+        return 0
+    n = len(r.stdout.split()) if r.returncode == 0 else 0
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if n and vis is not None:
+        n = min(n, len([c for c in vis.split(",") if c.strip()]))
+    return n
+
+
+def _pin_card(queue) -> None:
+    """Pool initializer: give this worker one card before JAX starts."""
+    card = queue.get()
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis:
+        card = vis.split(",")[int(card)].strip()
+    os.environ["CUDA_VISIBLE_DEVICES"] = str(card)
+
+
 def run_shards(window_files: List[str], bam_paths: List[str],
                fasta_path: str, params: Parameters, output_prefix: str,
                lib_file: Optional[str] = None, backend: str = "xla",
                num_workers: int = 0):
-    """Run every window file, in parallel when num_workers > 1.
+    """Run every window file, in parallel when num_workers > 1 (one card
+    per worker on a GPU host; more workers than cards are refused).
     Returns (glf_paths in window order, list of per-shard stats)."""
     jobs = []
     for i, wf in enumerate(window_files):
@@ -62,7 +96,18 @@ def run_shards(window_files: List[str], bam_paths: List[str],
                      f"{output_prefix}.shard{i}"))
     if num_workers and num_workers > 1 and len(jobs) > 1:
         ctx = get_context("spawn")  # fork is unsafe after jax init
-        with ctx.Pool(num_workers) as pool:
+        cards = visible_cards()
+        init, initargs = None, ()
+        if cards:
+            if num_workers > cards:
+                raise ValueError(f"{num_workers} workers but {cards} GPUs: "
+                                 "each worker needs a card of its own")
+            queue = ctx.Queue()
+            for c in range(num_workers):
+                queue.put(c)
+            init, initargs = _pin_card, (queue,)
+        with ctx.Pool(num_workers, initializer=init,
+                      initargs=initargs) as pool:
             results = pool.map(_run_one, jobs)
     else:
         results = [_run_one(j) for j in jobs]

@@ -108,7 +108,7 @@ def test_device_call_small_batches(tmp_path):
 
 
 def test_window_call_matches_host_folds():
-    """The on-device fold (TPU production path) agrees with the host
+    """The on-device fold (f32 production path) agrees with the host
     anchor folds to float64 exp-rounding noise (~1e-9 relative); exact
     equality is not required because XLA and numpy exp/log differ by an
     ulp on some inputs (see host_window_folds docstring)."""

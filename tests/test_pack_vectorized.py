@@ -39,7 +39,8 @@ def test_pack_identical(dtype):
     _compare(pk_ref, pk_new)
 
 
-def test_pack_identical_pallas_layout():
+def test_pack_identical_explicit_layout():
+    """Caller-chosen H_pad/L_pad (as the engine's slab buckets pass)."""
     params = ObservationModelParameters()
     (haps, reads, hs), = synth_windows(1, nh=3, nr=17, H=100, L=60, seed=8)
     pk_ref = _pack_pairs_ref(haps, reads, hs, params, dtype=np.float32,

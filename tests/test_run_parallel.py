@@ -36,3 +36,41 @@ def test_sharded_run_and_merge(tmp_path):
     # position-ordered output
     poss = [int(l.split("\t")[1]) for l in recs]
     assert poss == sorted(poss)
+
+
+def test_run_shards_refuses_more_workers_than_cards(monkeypatch, tmp_path):
+    """On a GPU host every worker gets a card of its own: a JAX process
+    reserves most of a card's memory, so a second one on it would fail."""
+    from dindel_tpu.pipeline import run_parallel
+    monkeypatch.setattr(run_parallel, "visible_cards", lambda: 2)
+    with pytest.raises(ValueError, match="card of its own"):
+        run_parallel.run_shards(["a", "b", "c", "d"], ["x.bam"], "x.fa",
+                                Parameters(), str(tmp_path / "run"),
+                                num_workers=4)
+
+
+@pytest.mark.parametrize("visible,slot,want", [(None, 2, "2"),
+                                               ("3,5", 1, "5")])
+def test_pin_card_sets_visible_device(monkeypatch, visible, slot, want):
+    from dindel_tpu.pipeline import run_parallel
+
+    class Q:
+        def get(self):
+            return slot
+
+    if visible is None:
+        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    else:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    run_parallel._pin_card(Q())
+    import os
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == want
+
+
+def test_visible_cards_without_driver(monkeypatch):
+    from dindel_tpu.pipeline import run_parallel
+
+    def missing(*a, **k):
+        raise FileNotFoundError("nvidia-smi")
+    monkeypatch.setattr(run_parallel.subprocess, "run", missing)
+    assert run_parallel.visible_cards() == 0
